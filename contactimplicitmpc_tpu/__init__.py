@@ -1,23 +1,24 @@
-"""contactimplicitmpc_tpu — TPU-native contact-implicit model-predictive
-control.
+"""contactimplicitmpc_tpu — contact-implicit model-predictive control in
+JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ContactImplicitMPC.jl (Le Cleac'h, Howell, Schwager, Manchester,
 arXiv:2107.05616): contact dynamics as nonlinear complementarity problems,
 interior-point physics simulation, and real-time contact-implicit MPC —
-batched, jit-compiled, and shardable across TPU meshes.
+batched, jit-compiled, and shardable across GPU meshes.
 """
 
 import os as _os
 
 import jax as _jax
 
-# TPU f32 matmuls default to bfloat16 passes (~8 mantissa bits). Every
-# number this library produces flows through interior-point residuals and
-# Newton steps whose convergence tests sit at 1e-3..1e-8 — bf16 passes
-# floor the residuals at ~1e-2 and silently break convergence. Force true
-# f32 (3-pass MXU) for the process; opt out with CIMPC_NO_PRECISION_FIX=1
-# and pass explicit `precision=` at your own call sites.
+# On an H100, XLA may run float32 matmuls in TF32 (10 mantissa bits).
+# Every number this library produces flows through interior-point
+# residuals and Newton steps whose convergence tests sit at 1e-3..1e-8,
+# which reduced-precision products can floor and so silently break
+# convergence. Force true f32 products for the process; opt out with
+# CIMPC_NO_PRECISION_FIX=1 and pass explicit `precision=` at your own
+# call sites.
 if not _os.environ.get("CIMPC_NO_PRECISION_FIX"):
     _jax.config.update("jax_default_matmul_precision", "highest")
 

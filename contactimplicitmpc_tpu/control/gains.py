@@ -1,6 +1,6 @@
 """Time-varying LQR gains around linearized contact dynamics.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/controller/gains.jl``. The backward Riccati
 recursion runs as a reverse ``lax.scan``; the contact-dynamics Jacobians
 come from the linearized sensitivity ``∂z/∂θ = −rz⁻¹ rθ`` exactly as

@@ -1,11 +1,11 @@
 """Implicit (smoothed) contact dynamics for the MPC: batched linearized
 interior-point solves with sensitivities.
 
-TPU-native redesign of ``ImplicitTrajectory`` / ``implicit_dynamics!``
+JAX redesign of ``ImplicitTrajectory`` / ``implicit_dynamics!``
 (``/root/reference/src/controller/implicit_dynamics.jl``). The reference
 loops (optionally ``Threads.@threads``) over H per-knot solvers; here the H
 knots are one ``jax.vmap`` over the interior-point kernel — identical
-structure across knots makes the batch perfectly regular for the TPU.
+structure across knots makes the batch perfectly regular.
 
 Outputs per knot t (implicit_dynamics.jl:156-192):
 
@@ -67,7 +67,7 @@ def implicit_dynamics(dims: Dims, mode: str, lin: LinearizedData,
     (implicit_dynamics.jl:160-178: lin index = window, traj index = i).
 
     ``fixed_iters > 0`` switches to the deterministic fixed-iteration
-    solver (``ops.linearized_ip_fixed``) — the TPU real-time path.
+    solver (``ops.linearized_ip_fixed``) — the real-time path.
     """
     nd = nd_of(dims, mode)
     horizon = traj.horizon

@@ -1,7 +1,7 @@
 """Pre-linearized residual data for the MPC's smooth implicit-dynamics
 model.
 
-TPU-native redesign of ``LinearizedStep``
+JAX redesign of ``LinearizedStep``
 (``/root/reference/src/controller/linearized_step.jl``) and the
 structure-exploiting ``RLin/RZLin/RθLin`` residual
 (``src/controller/linearized_solver.jl:15-587``).
@@ -9,7 +9,7 @@ structure-exploiting ``RLin/RZLin/RθLin`` residual
 The reference stores per-knot static-array blocks and a Schur
 factorization refreshed every IP iteration. Here the linearization data is
 a stack of dense ``(H, nz, nz)`` / ``(H, nz, nθ)`` arrays — at these sizes
-(nz ≤ ~64) a batched dense LU on TPU beats block bookkeeping, and the
+(nz ≤ ~64) a batched dense LU beats block bookkeeping, and the
 bilinear rows are refreshed inside the generic interior-point kernel by
 overwriting their diagonal blocks (see ``ip_solve``).
 
@@ -29,8 +29,7 @@ import jax.numpy as jnp
 
 from ..dims import Dims
 from ..models.base import Model, dims_of
-from ..sim.residual import (residual, residual_theta_jacobian,
-                            residual_z_jacobian)
+from ..sim.residual import residual
 from .trajectory import ContactTraj
 
 
@@ -50,14 +49,20 @@ def linearize_trajectory(model: Model, env, traj: ContactTraj,
     """Evaluate r, rz, rθ at every knot of ``traj``
     (ImplicitTrajectory construction, implicit_dynamics.jl:56-68)."""
     kappa = jnp.asarray(kappa, traj.z.dtype)
+    nz = traj.z.shape[1]
 
     def one(z0, th0):
-        r0 = residual(model, env, z0, th0, kappa)
-        rz0 = residual_z_jacobian(model, env, z0, th0)
-        rt0 = residual_theta_jacobian(model, env, z0, th0)
-        return r0, rz0, rt0
+        # r, rz and rθ from one forward-mode pass over [z; θ] (κ shifts
+        # the bilinear rows by a constant, so the Jacobian is rz!/rθ!'s)
+        def r(zt):
+            out = residual(model, env, zt[:nz], zt[nz:], kappa)
+            return out, out
+        jac, r0 = jax.jacfwd(r, has_aux=True)(jnp.concatenate([z0, th0]))
+        return r0, jac[:, :nz], jac[:, nz:]
 
-    r0, rz0, rt0 = jax.vmap(one)(traj.z, traj.theta)
+    # one compiled program: op-by-op dispatch of the per-knot Jacobians
+    # costs tens of seconds of host time at set-up
+    r0, rz0, rt0 = jax.jit(jax.vmap(one))(traj.z, traj.theta)
     return LinearizedData(z0=traj.z, theta0=traj.theta, r0=r0, rz0=rz0,
                           rtheta0=rt0)
 
@@ -98,8 +103,8 @@ def make_schur_solver(dims: Dims, rz0, opts):
     Schur complement about the constant ``Dx`` needs only an ny×ny
     factorization per iteration — Dx⁻¹, Rx Dx⁻¹ and Rx Dx⁻¹ Dy1 are
     precomputed once per linearization point (RZLin, linearized_solver.jl:
-    224-304). On TPU this cuts the sequential factorization depth from
-    nz to ny per iteration.
+    224-304). This cuts the sequential factorization depth from nz to ny
+    per iteration.
     """
     from ..ops.linsolve import gj_inverse, pdot
 

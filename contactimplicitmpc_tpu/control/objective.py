@@ -1,6 +1,6 @@
 """Tracking objectives for the horizon Newton solve.
 
-TPU-native redesign of ``/root/reference/src/controller/objective.jl``.
+JAX redesign of the reference's ``src/controller/objective.jl``.
 Weights are stored as per-knot diagonal vectors (the reference uses
 ``Diagonal`` matrices) stacked along the horizon.
 """

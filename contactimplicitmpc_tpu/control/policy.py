@@ -1,6 +1,6 @@
 """Contact-implicit MPC policy.
 
-TPU-native redesign of ``CIMPC`` / ``ci_mpc_policy``
+JAX redesign of ``CIMPC`` / ``ci_mpc_policy``
 (``/root/reference/src/controller/policy.jl``) and the receding-horizon
 utilities (``src/controller/mpc_utils.jl``). The reference mutates a policy
 object inside the simulator loop; here the policy is a pure function over an

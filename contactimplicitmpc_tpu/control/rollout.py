@@ -1,18 +1,18 @@
-"""Compile-lean closed-loop MPC rollout for benchmarks and pod-scale
+"""Compile-lean closed-loop MPC rollout for benchmarks and multi-device
 sweeps.
 
 The general path (``ci_mpc_policy`` + ``simulate``) keeps the reference's
 per-sim-step policy dispatch, which under jit duplicates the whole control
 update inside a ``lax.cond`` and nests the Newton line search's vmap over
-the per-knot vmap — fine on CPU, but the XLA:TPU compile cost scales with
-program size. This module restructures the same computation as::
+the per-knot vmap — fine on CPU, but the accelerator compile cost scales
+with program size. This module restructures the same computation as::
 
     scan over control periods:
         one CIMPC Newton solve          (control update)
         scan over N_sample physics steps (interior-point sim)
 
 which eliminates the cond, the sample-and-hold counters, and one level of
-control-flow nesting, compiling to a much smaller TPU program with
+control-flow nesting, compiling to a much smaller device program with
 identical semantics for the standard "control every N_sample steps"
 schedule (policy.jl:98-152).
 """
@@ -141,10 +141,10 @@ def mpc_rollout(
         V[j] = q[j] for j ≤ H+1 and V[j] = V[j−H] + stride past them, so
         the window is a gather + a wrap-count stride offset. Building it
         per period (instead of carrying the rotated gait through the
-        scan) removes the H_ref-sized PER-LANE loop-carried arrays —
-        loop-state copies were 18% of device time at batch 8 and the
-        rotation itself rewrote every gait row each period (TUNING.md
-        round 5)."""
+        scan) removes the H_ref-sized PER-LANE loop-carried arrays and
+        the rotation that rewrote every gait row each period (chosen
+        before the move to the H100; not measured there yet, ROADMAP
+        D3)."""
         rows2 = t + jnp.arange(h_mpc + 2)
         jm2 = rows2 - 2
         q_wrap = (ref_traj.q[(jm2 % h_ref) + 2]
@@ -234,8 +234,8 @@ def mpc_rollout(
     # Newton failure threshold for the controller-level cold restart: a
     # control solve that ends with its residual far above tolerance has
     # garbage duals/primals; warm-starting the NEXT solve from them can
-    # trap the controller in a non-converging feedback loop (observed on
-    # TPU f32 at batch ≥ 64: one borderline step at ~10× r_tol never
+    # trap the controller in a non-converging feedback loop (observed in
+    # f32 at batch ≥ 64: one borderline step at ~10× r_tol never
     # recovers for the rest of the rollout). ``newton_reset_scale > 0``
     # resets the next step's warm start to the reference whenever
     # r_norm > scale · r_tol · n — the batched analog of the reference's

@@ -517,7 +517,7 @@ def structure_newton_solve(dims: Dims, sobj: StructureObjective,
         # growth beyond opts.ls_growth_allow when finite (float32
         # block-Cholesky on a near-indefinite Y can 10× the residual in
         # one forced uphill step and trap the receding-horizon warm
-        # start — observed on TPU at batch ≥ 64; hard-terrain recipes
+        # start — observed in f32 at batch ≥ 64; hard-terrain recipes
         # instead need unbounded nonmonotone escapes, the inf default).
         # Stale values + retry next control period on rejection is the
         # reference's failure semantics (implicit_dynamics.jl:169-177)

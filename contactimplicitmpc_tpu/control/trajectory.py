@@ -1,6 +1,6 @@
 """Contact trajectories: the reference/working gait storage of the MPC.
 
-TPU-native redesign of ``/root/reference/src/controller/trajectory.jl``.
+JAX redesign of the reference's ``src/controller/trajectory.jl``.
 The reference stores vectors-of-vectors mutated in place; here a
 ``ContactTraj`` is a NamedTuple of stacked arrays (a pytree), and every
 update (rotation, striding, window selection) is a functional array op that

@@ -1,6 +1,6 @@
 """Problem dimensions and index layouts for the contact NCP.
 
-TPU-native re-design of the reference index machinery
+JAX re-design of the reference index machinery
 (``/root/reference/src/simulation/index.jl:8-390``). The reference computes
 integer index vectors at runtime; here every layout is a *static* Python
 slice derived from a frozen ``Dims`` dataclass, so traced JAX code sees only
@@ -23,7 +23,7 @@ Aggregated blocks (index.jl:289-327): variables group into
 ``y2 = [s1; eta1; s2]`` (size ny); residual rows group into
 ``dyn`` (nx), ``rst = [imp; mdp; fri]`` (ny), ``bil`` (ny). All three groups
 are contiguous in this layout — a design choice that makes every linearized
-block a contiguous slab on TPU.
+block a contiguous slab in device memory.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Terrain environments: surface height fields, contact-frame rotations,
 friction-cone metadata.
 
-TPU-native redesign of ``/root/reference/src/simulator/environment.jl`` and
+JAX redesign of the reference's ``src/simulator/environment.jl`` and
 ``/root/reference/src/simulation/environments/*.jl``. The reference derives
 surface gradients with Symbolics at construction time; here ``jax.grad``
 supplies them at trace time unless an explicit gradient is given (needed for
@@ -10,7 +10,7 @@ e.g. the hard stairs at stairs.jl:1-46 which report slope 0).
 
 All terrain branches use ``jnp.where`` — the direct analog of the
 reference's branchless ``IfElse.ifelse`` chains (piecewise.jl, stairs.jl),
-and the only jit-compatible form on TPU.
+and the only jit-compatible form.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """The shipped product hot-path configuration, as one importable object.
 
-``bench.py`` (the driver-run headline benchmark) and the CI regression
-test ``tests/test_hotpath.py`` both build their rollout from THIS module,
-so the configuration the benchmark ships is — by construction — the
-configuration CI guards. Round-4 verdict: the bench defaults (f32,
+``bench.py`` (the headline benchmark), ``chip_smoke.py`` and the CI
+regression test ``tests/test_hotpath.py`` all build their rollout from
+THIS module, so the configuration the benchmark ships is — by
+construction — the configuration CI guards: the bench defaults (f32,
 fixed-iteration knot solves, duals-only warm start, bounded line-search
-fallback, cold-restart scale) were validated only by hand-run TPU sweeps;
-a plain refactor could silently break the product path.
+fallback, cold-restart scale) were tuned by hand-run sweeps, and a plain
+refactor could silently break the product path.
 
 Reference contract anchors:
 * MPC recipe: ``/root/reference/examples/quadruped/flat.jl:25-29``
@@ -14,7 +14,8 @@ Reference contract anchors:
 * tracking thresholds: ``/root/reference/test/controller/mpc_quadruped.jl:61-68``
 * timing recipe: ``/root/reference/examples/quadruped/flat.jl:77-79``
 
-Tuning provenance for every non-reference default: TUNING.md.
+Every non-reference default was chosen by sweeps run before the move to
+the H100 and is not measured there yet (ROADMAP D3).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 class HotPathConfig:
     """Every knob of the product Monte-Carlo rollout program.
 
-    Defaults = the shipped f32 TPU bench configuration. ``bench.py``
+    Defaults = the shipped f32 bench configuration. ``bench.py``
     overrides individual fields from ``CIMPC_BENCH_*`` environment
     variables; the CI test asserts closed-loop health at these exact
     defaults on the CPU backend.
@@ -43,7 +44,7 @@ class HotPathConfig:
     newton_r_tol: float = 3.0e-4
     newton_iters: int = 5
     newton_max_ls: int = 6           # line-search halvings (newton.jl:249)
-    fixed_ip_iters: int = 8          # TUNING.md: fixed=8 + refine=1
+    fixed_ip_iters: int = 8          # fixed=8 + refine=1 (ROADMAP D3)
     trial_ip_iters: int = 0          # >0: reduced budget for LS trials
     fixed_newton_iters: int = 0      # 0 = adaptive while_loop
     ls_growth_allow: float = 2.0     # bounded no-accept fallback (f32)
@@ -54,7 +55,7 @@ class HotPathConfig:
     mpc_ip_iters: int = 30
     gamma_reg: float = 0.1
     mpc_max_ls: int = 3
-    refine: int = 1                  # knot-solve refinement (TUNING.md)
+    refine: int = 1                  # knot-solve refinement (ROADMAP D3)
     mpc_unroll: int = 1              # unroll factor, knot fixed-ip loop
 
     # simulation-path interior point
@@ -64,18 +65,17 @@ class HotPathConfig:
     sim_max_ls: int = 6
     sim_refine: int = 0
     sim_fixed_iters: int = 24        # masked fixed-iteration sim solves
-    #                                  (TUNING.md r5 sweep: adaptive
-    #                                  strict-success health at +29%
-    #                                  throughput; 0 = adaptive
-    #                                  while_loop — the better setting
-    #                                  at batch ≤ 8, which bench.py's
-    #                                  latency lanes select)
+    #                                  (chosen over the adaptive loop at
+    #                                  equal health before the move to
+    #                                  the H100, ROADMAP D3; 0 =
+    #                                  adaptive while_loop, which
+    #                                  bench.py's latency lanes select)
     sim_unroll: int = 1              # unroll factor, sim fixed-ip loop
     sim_retries: int = 0
 
     # warm starts
     warm_start_floor: float = 1.0e-2
-    structure_full_warm: bool = False  # duals-only (TUNING.md A/B)
+    structure_full_warm: bool = False  # duals-only (ROADMAP D3)
 
     def newton_options(self):
         from .control.newton import NewtonOptions
@@ -116,6 +116,35 @@ def quadruped_tracking_weights(dims, h_mpc, dtype):
         u=3e-2 * np.ones((h_mpc, dims.nu)),
         gamma=1e-100 * np.ones((h_mpc, dims.nc)),
         b=1e-100 * np.ones((h_mpc, dims.nb)), dtype=dtype)
+
+
+def conf_initial_states(model, ref, batch: int, key, dtype):
+    """``(q1s, v1s)`` for a Monte-Carlo sweep of ``batch`` lanes drawn
+    from the reference study's own distribution: kinematically-consistent
+    standing poses sampled from leg-angle/pose ranges
+    (examples/quadruped/monte_carlo.jl:80-89 via initial_configuration
+    :94-116), at the gait's initial velocity.
+
+    Lane 0 runs the reference's unperturbed initial condition
+    (mpc_quadruped.jl:51-53), so its tracking error compares directly with
+    the published nominal 0.0201.
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from .control import initial_conditions
+    from .models.quadruped import initial_configuration
+
+    q1, v1 = initial_conditions(ref)
+    cmin = jnp.asarray([0.0, 0.6, 0.6, 0.6, -0.2, -0.3], dtype)
+    cmax = jnp.asarray([0.05, 0.8, 0.8, 0.8, 0.2, 0.1], dtype)
+    conf = cmin + (cmax - cmin) * jax.random.uniform(key, (batch, 6), dtype)
+    conf = conf.at[:, 5].set(jnp.maximum(conf[:, 5], 0.0))
+    q1s = jax.vmap(lambda c: initial_configuration(
+        model, c[0], c[1], c[2], c[3], c[4], c[5]))(conf).astype(dtype)
+    q1s = q1s.at[0].set(q1.astype(dtype))
+    v1s = jnp.broadcast_to(v1, (batch, q1.shape[0])).astype(dtype)
+    return q1s, v1s
 
 
 def make_quadruped_rollout(cfg: HotPathConfig, steps: int, dtype):

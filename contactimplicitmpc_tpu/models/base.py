@@ -1,6 +1,6 @@
 """Model protocol and the variational (midpoint Lagrangian) integrator.
 
-TPU-native redesign of ``/root/reference/src/dynamics/model.jl``. The
+JAX redesign of the reference's ``src/dynamics/model.jl``. The
 reference codegens ``L, M, C, B, A, k`` through Symbolics
 (code_gen_dynamics.jl:5-77); here each robot is a plain Python object with
 pure JAX methods, and the autodiff defaults below replace the symbolic

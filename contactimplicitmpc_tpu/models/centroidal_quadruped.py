@@ -1,6 +1,6 @@
 """Centroidal quadruped: 3D single rigid body + four point feet.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/centroidal_quadruped/model.jl``.
 
 Configuration (model.jl:1-10)::

@@ -1,6 +1,6 @@
 """Centroidal quadruped variants: box step-up and wall contacts.
 
-TPU-native re-implementations of
+JAX re-implementations of
 ``/root/reference/src/dynamics/centroidal_quadruped_box/model.jl`` and
 ``/root/reference/src/dynamics/centroidal_quadruped_wall/model.jl`` (plus
 ``model_slanted.jl``, which differs only in the wall position ``x_wall``).

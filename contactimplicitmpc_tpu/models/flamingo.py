@@ -1,6 +1,6 @@
 """Flamingo: planar 9-DoF biped with feet (toe + heel contacts).
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/flamingo/model.jl``.
 
 Configuration (model.jl:455-460)::

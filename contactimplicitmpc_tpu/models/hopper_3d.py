@@ -1,6 +1,6 @@
 """3D hopper with MRP orientation.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/hopper_3D/model.jl``.
 q = (px, py, pz, mrp_x, mrp_y, mrp_z, r): body position, modified
 Rodrigues parameters, leg length.

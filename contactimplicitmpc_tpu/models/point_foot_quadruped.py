@@ -1,7 +1,7 @@
 """Point-foot quadruped (120 Hz variant): centroidal body + four feet
 with orientation damping and springs.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/point_foot_quadruped/model.jl`` (V1
 parameter set: orientation friction 5, orientation spring 0.5, no joint
 springs/friction). The model overrides the integrator damping with

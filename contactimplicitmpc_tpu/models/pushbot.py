@@ -1,6 +1,6 @@
 """PushBot: inverted pendulum between two walls (push recovery).
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/pushbot/model.jl``. q = (θ, d) where d is
 the end-effector slider along the pole; two contacts against walls at
 x = ±0.5. Custom φ (wall gaps) and contact Jacobian (rotated slider

@@ -1,6 +1,6 @@
 """Planar quadruped (~Unitree A1), 11-DoF, 4 contact feet.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/quadruped/model.jl``. The reference builds
 kinematics/Jacobians by hand and codegens everything through Symbolics;
 here the link kinematics are small traced JAX functions and the com

@@ -1,6 +1,6 @@
 """Rotation utilities: quaternions, modified Rodrigues parameters, Euler.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/{quaternions,mrp,euler}.jl``.
 Quaternions are (w, x, y, z).
 """

@@ -1,6 +1,6 @@
 """Walled cartpole: pole tip confined between two compliant walls.
 
-TPU-native re-implementation of
+JAX re-implementation of
 ``/root/reference/src/dynamics/walledcartpole/model.jl``.
 q = (θ, x, xw1, xw2): pole angle, cart position, and the two wall
 deflections (spring-loaded with stiffness k).

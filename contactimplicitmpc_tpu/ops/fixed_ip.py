@@ -6,11 +6,9 @@ predictor–corrector with centering fallback and merit line search), but
 the solver runs a *fixed* number of masked iterations inside
 ``lax.fori_loop``:
 
-* deterministic on-chip timing — the TPU replacement for the reference's
+* deterministic on-device timing — the replacement for the reference's
   wall-clock ``max_time`` budget (SURVEY.md §7)
 * no batched-while lane synchronization
-* the exact loop structure the fused Pallas kernel implements, so this
-  function doubles as its numerical oracle
 
 All linear algebra is the structured Schur path (constant blocks
 precomputed once per linearization point).

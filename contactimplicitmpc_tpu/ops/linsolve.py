@@ -1,11 +1,12 @@
-"""Small-matrix dense solvers tuned for TPU.
+"""Small-matrix dense solvers without pivoting.
 
 XLA's pivoted LU (``lu_factor``/``jnp.linalg.solve``) lowers to a
-sequential row-swap loop with per-step gathers — pathological on TPU for
-the tiny systems this framework solves (nq ≈ 2–18, ny ≈ 3–48). These
-replacements use *unpivoted* elimination whose per-step work is pure
-elementwise/rank-1 arithmetic on the VPU, so a ``vmap`` over problems
-(batch lanes, horizon knots) vectorizes perfectly.
+sequential row-swap loop with per-step gathers. For the tiny systems this
+framework solves (nq ≈ 2–18, ny ≈ 3–48) these replacements use
+*unpivoted* elimination whose per-step work is pure elementwise/rank-1
+arithmetic, so a ``vmap`` over problems (batch lanes, horizon knots)
+vectorizes without gathers. The choice was made on another accelerator;
+whether it beats batched LU on the H100 is not measured yet (ROADMAP S6).
 
 Pivot-free is safe here by construction, mirroring the reference:
 
@@ -25,9 +26,9 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# TPU f32 matmuls default to bfloat16 passes; solver algebra needs the
-# full-precision path (3-pass f32 on the MXU) or unpivoted elimination
-# loses ~3 digits and the IP iterations stop converging.
+# f32 matmuls may run at reduced precision (TF32 on the H100); solver
+# algebra needs full f32 products or unpivoted elimination loses digits
+# and the IP iterations stop converging.
 _P = jax.lax.Precision.HIGHEST
 
 
@@ -138,7 +139,7 @@ def ldl_factor(a, boost: float = 0.0):
     the diagonal of D.
 
     n sequential rank-1 trailing updates, elementwise across a vmapped
-    batch — the same TPU-friendly shape as ``gj_inverse``.
+    batch — the same gather-free shape as ``gj_inverse``.
     """
     n = a.shape[0]
     dtype = a.dtype

@@ -1,28 +1,26 @@
-"""Multi-host (multi-process) scaling: jax.distributed initialization and
-the dp-over-DCN × kn-over-ICI mesh layout.
+"""Multi-process scaling: jax.distributed initialization and the global
+data-parallel mesh.
 
 The reference is single-process Julia with no distributed backend at all
 (SURVEY.md §2.10); its Monte-Carlo studies are serial for-loops
-(``examples/hopper/monte_carlo.jl:78-91``). The TPU-native scaling story
-runs those sweeps over a multi-host slice/pod:
+(``examples/hopper/monte_carlo.jl:78-91``). Here those sweeps run over
+every GPU of one or more hosts:
 
-* Every host runs THIS same program (SPMD). ``initialize()`` wires the
+* Every process runs THIS same program (SPMD). ``initialize()`` wires the
   processes together via the coordinator service; afterwards
   ``jax.devices()`` is the *global* device list.
 * Monte-Carlo lanes only exchange scalar sweep statistics (one ``psum``
-  per sweep), so the data-parallel ``dp`` axis is the one laid across
-  hosts — its collectives are tiny and tolerate DCN latency. The ``kn``
-  axis (any intra-sweep batching that might someday communicate more)
-  stays within a host so its collectives ride ICI. ``make_global_mesh``
-  encodes exactly that layout.
+  per sweep), so one data-parallel ``dp`` axis covers every card: within
+  a host the psum rides NVLink, across hosts the network, and either way
+  it is a few scalars per sweep. ``make_global_mesh`` orders the axis by
+  process so each process's lanes are contiguous.
 * Per-process batch shards are assembled into one global array with
   ``jax.make_array_from_process_local_data`` — no host ever materializes
   the full sweep.
 
-Hardware note: this build environment exposes a single chip, so the
-multi-process path is validated by a 2-process × N-virtual-CPU-device
-smoke test (``tests/test_multihost.py``) — the same program shape that
-runs on a real multi-host slice.
+The multi-process path is checked by a 2-process × 4-virtual-CPU-device
+test (``tests/test_multihost.py``), the same program shape as several
+GPU hosts.
 """
 
 from __future__ import annotations
@@ -41,12 +39,10 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids: Optional[Sequence[int]] = None) -> bool:
     """Join the multi-process runtime; returns True if distributed.
 
-    On Cloud TPU the arguments auto-detect from the metadata server, so a
-    bare ``initialize()`` works on every host of a slice. Off-TPU (CPU
-    smoke tests, manual clusters) pass them explicitly or set
-    ``CIMPC_COORDINATOR`` / ``CIMPC_NUM_PROCESSES`` / ``CIMPC_PROCESS_ID``.
-    A plain single-process run (no arguments, no env, no TPU metadata) is
-    left untouched and returns False — every downstream helper then
+    Pass the coordinator (``host:port``), process count and process id
+    explicitly, or set ``CIMPC_COORDINATOR`` / ``CIMPC_NUM_PROCESSES`` /
+    ``CIMPC_PROCESS_ID``. Without a coordinator the run stays a plain
+    single process and this returns False — every downstream helper then
     degrades to the single-host behavior.
     """
     coordinator_address = coordinator_address or os.environ.get(
@@ -56,15 +52,8 @@ def initialize(coordinator_address: Optional[str] = None,
     if process_id is None and "CIMPC_PROCESS_ID" in os.environ:
         process_id = int(os.environ["CIMPC_PROCESS_ID"])
 
-    if coordinator_address is None and num_processes is None:
-        # bare TPU-pod auto-detection only when actually on a TPU backend
-        try:
-            if jax.default_backend() != "tpu":
-                return False
-        except Exception:
-            return False
-        jax.distributed.initialize()
-        return jax.process_count() > 1
+    if coordinator_address is None:
+        return False
 
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
@@ -73,20 +62,12 @@ def initialize(coordinator_address: Optional[str] = None,
     return True
 
 
-def make_global_mesh(axis_names: Sequence[str] = ("dp", "kn")) -> Mesh:
-    """(n_processes × local, per-host) mesh: ``dp`` spans hosts (DCN),
-    ``kn`` spans each host's chips (ICI).
-
-    The global device array is laid out so that consecutive devices along
-    the trailing (``kn``) axis belong to one process — XLA then routes
-    ``kn`` collectives over ICI and only the ``dp``-axis scalar psums
-    cross DCN. Single-process: equivalent to ``make_mesh`` with dp=1.
-    """
-    n_proc = jax.process_count()
-    per_host = jax.local_device_count()
+def make_global_mesh() -> Mesh:
+    """1-D ``("dp",)`` mesh over every device of every process, ordered by
+    ``(process_index, id)`` so each process owns one contiguous block of
+    the axis. Single-process: the same mesh as ``make_mesh()``."""
     devices = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
-    grid = np.asarray(devices).reshape(n_proc, per_host)
-    return Mesh(grid, tuple(axis_names))
+    return Mesh(np.asarray(devices), ("dp",))
 
 
 def global_batch(mesh: Mesh, local_batch: np.ndarray):

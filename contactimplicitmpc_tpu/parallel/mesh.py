@@ -2,36 +2,26 @@
 
 The reference's only parallelism is ``Threads.@threads`` over per-knot IP
 solves (implicit_dynamics.jl:166-171) and serial Monte-Carlo loops
-(examples/hopper/monte_carlo.jl:78-91). The TPU-native scaling axes
-(SURVEY.md §2.10) are:
-
-* ``dp`` — Monte-Carlo rollouts (seeds / initial conditions), the primary
-  axis; collectives ride ICI for sweep statistics.
-* ``kn`` — a second batch axis for very large sweeps (2D torus layout).
-  The horizon/knot dimension itself stays on-chip: per-knot IP solves are
-  vmap-batched (they share one program), and the Riccati sweep is
-  sequential per rollout.
+(examples/hopper/monte_carlo.jl:78-91). Here Monte-Carlo rollouts (seeds /
+initial conditions) are the one scaling axis, ``dp``: the cards of one
+host are joined all to all by NVLink, so a single data-parallel axis is
+the whole layout. The horizon/knot dimension stays on-device: per-knot IP
+solves are vmap-batched (they share one program), and the Riccati sweep
+is sequential per rollout.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 import jax
 import numpy as np
 from jax.sharding import Mesh
 
 
-def make_mesh(n_devices: Optional[int] = None,
-              axis_names: Sequence[str] = ("dp", "kn")) -> Mesh:
-    """Build a 2D mesh over the first ``n_devices`` devices, factoring the
-    device count as evenly as possible into (dp, kn)."""
+def make_mesh(n_devices: Optional[int] = None) -> Mesh:
+    """1-D ``("dp",)`` mesh over the first ``n_devices`` devices (all of
+    them by default)."""
     devices = jax.devices()
     n = n_devices or len(devices)
-    devices = np.asarray(devices[:n])
-    kn = 1
-    for cand in range(int(np.sqrt(n)), 0, -1):
-        if n % cand == 0:
-            kn = cand
-            break
-    return Mesh(devices.reshape(n // kn, kn), tuple(axis_names))
+    return Mesh(np.asarray(devices[:n]), ("dp",))

@@ -1,10 +1,10 @@
-"""Sharded Monte-Carlo rollouts: the pod-scale replacement for the
+"""Sharded Monte-Carlo rollouts: the multi-device replacement for the
 reference's serial robustness studies.
 
 ``examples/hopper/monte_carlo.jl:78-91`` runs 100 seeds × 1000 steps in a
 serial Julia loop. Here a batch of closed-loop rollouts is one ``vmap`` per
-chip and a ``shard_map`` across the mesh; sweep statistics reduce with
-``psum`` over ICI (SURVEY.md §2.10).
+device and a ``shard_map`` across the mesh; sweep statistics reduce with
+one ``psum`` (SURVEY.md §2.10).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def sharded_rollouts(mesh: Mesh, model, env, horizon: int, h: float,
                      q1_batch, v1_batch, policy=None, disturbances=None,
                      opts=None) -> SimTrajectory:
     """Rollouts sharded over every mesh axis (pure data parallel: the
-    batch is laid out over the full torus; XLA keeps all compute local)."""
+    batch is laid out over the whole mesh; XLA keeps all compute local)."""
     roll = functools.partial(simulate, model, env, horizon, h,
                              policy=policy, disturbances=disturbances,
                              opts=opts)
@@ -55,7 +55,7 @@ def sharded_rollouts(mesh: Mesh, model, env, horizon: int, h: float,
 
 
 class MPCSweepStats(NamedTuple):
-    """Pod-scale closed-loop MPC sweep health (the batched analog of the
+    """Multi-device closed-loop MPC sweep health (the batched analog of the
     reference's per-example report: examples/quadruped/flat.jl:71-79 +
     test thresholds mpc_quadruped.jl:61-68). All fields are global
     (psum-reduced over the mesh)."""
@@ -83,7 +83,7 @@ def make_sharded_mpc_rollouts(mesh: Mesh, rollout_fn, ref, n_sample: int,
     rollout (control.rollout.mpc_rollout partially applied). Each shard
     vmaps its slice of the batch locally; sweep statistics (success rate,
     full-batch tracking errors, iteration counts) reduce with ``psum``
-    over ICI — only scalars cross chips. The rollout output stays laid
+    — only scalars cross devices. The rollout output stays laid
     out over the mesh.
     """
     from ..control.trajectory import tracking_errors
@@ -140,7 +140,7 @@ def sharded_mpc_rollouts(mesh: Mesh, rollout_fn, ref, n_sample: int,
 def sharded_rollout_stats(mesh: Mesh, model, env, horizon: int, h: float,
                           q1_batch, v1_batch, policy=None,
                           disturbances=None, opts=None) -> RolloutStats:
-    """shard_map version with explicit ICI collectives: each shard rolls
+    """shard_map version with explicit collectives: each shard rolls
     its slice of the batch locally, then sweep statistics ``psum`` across
     the whole mesh — nothing but scalars crosses chips."""
     axes = mesh.axis_names

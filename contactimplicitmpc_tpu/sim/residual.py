@@ -1,7 +1,7 @@
 """Contact-NCP residual: one physics step as a nonlinear complementarity
 problem.
 
-TPU-native redesign of ``/root/reference/src/simulation/simulation.jl``.
+JAX redesign of the reference's ``src/simulation/simulation.jl``.
 The reference traces this residual with Symbolics and codegens ``r, rz, rθ``
 (code_gen_simulation.jl:2-168); here the residual is a traced JAX function
 and ``jax.jacfwd`` provides the Jacobians — the XLA compile cache plays the

@@ -4,7 +4,7 @@ speed-ratio surface of the reference
 ``examples/quadruped/flat.jl:77-79`` computes
 ``speed ratio = H_sim*h_sim / sum(stats.policy_time)``).
 
-On TPU the whole closed loop compiles into one program, so per-step
+Here the whole closed loop compiles into one program, so per-step
 wall-clock timing of the policy *inside* the rollout is meaningless; the
 honest equivalents are
 

@@ -11,7 +11,7 @@ layouts:
 
 JLD2 is HDF5 underneath, so ``h5py`` reads them directly; this module
 converts them once (offline) into flat ``.npz`` archives under
-``contactimplicitmpc_tpu/assets/gaits`` — the TPU build's equivalent of the
+``contactimplicitmpc_tpu/assets/gaits`` — this build's equivalent of the
 JLD2 artifact store (SURVEY.md §5 checkpoint/resume).
 
 Converted schema (all float64 numpy arrays)::

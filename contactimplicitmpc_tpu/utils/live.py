@@ -3,7 +3,7 @@
 The reference's ``CIMPCOptions.live_plotting`` debug loop
 (``/root/reference/src/controller/mpc_utils.jl:156-183``) re-plots the
 tracked configurations/controls from inside the solve. Under XLA the
-rollout is one compiled program, so the TPU-native recast streams each
+rollout is one compiled program, so the recast streams each
 step's state to the host through ``jax.debug.callback`` (cheap: a few
 scalars per sim step, fully async until the plot refresh) and refreshes
 a PNG every ``every`` steps — tail it with any image viewer for the

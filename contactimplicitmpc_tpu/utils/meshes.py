@@ -1,6 +1,6 @@
 """Mesh-class robot rendering from geometric primitives.
 
-TPU-side equivalent of the reference's MeshCat mesh stack
+Headless equivalent of the reference's MeshCat mesh stack
 (``visualize_meshrobot!``, ``/root/reference/src/visuals.jl:55-96`` and
 the per-robot ``build_meshrobot!``/``set_mesh_robot!`` methods in
 ``src/dynamics/<robot>/visuals.jl``): instead of loading URDF mesh

@@ -1,10 +1,10 @@
 """Trajectory visualization and export.
 
-The thin TPU-side equivalent of the reference's MeshCat stack
+The thin headless equivalent of the reference's MeshCat stack
 (``/root/reference/src/visuals.jl``, ``src/dynamics/visuals.jl``): the
 metric-relevant pieces are trajectory export and 2D diagnostic plots
 (the reference's ``live_plotting``, mpc_utils.jl:156-183); 3D mesh
-animation is intentionally out of scope on a headless TPU host.
+animation is intentionally out of scope on a headless accelerator host.
 
 Matplotlib is imported lazily so the module stays importable in
 plot-free environments.

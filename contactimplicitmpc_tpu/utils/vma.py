@@ -22,15 +22,11 @@ def unify_varying(tree):
     if not axes:
         return tree
 
-    pcast = getattr(jax.lax, "pcast", None)
-
     def fix(x):
         vma = getattr(jax.typeof(x), "vma", frozenset())
         missing = tuple(a for a in axes if a not in vma)
         if not missing:
             return x
-        if pcast is not None:
-            return pcast(x, missing, to="varying")
-        return jax.lax.pvary(x, missing)
+        return jax.lax.pcast(x, missing, to="varying")
 
     return jax.tree_util.tree_map(fix, tree)

@@ -4,7 +4,7 @@ policy the CIMPC paper compares against.
 Mirror of ``/root/reference/examples/raibert/flat_raibert.jl``: flat
 ground, h_sim = 0.02, start at q_ref = [0, 0.5, 0, 0.5], commanded
 forward velocity v0. A batched variant sweeps several v0 commands in one
-vmap — the TPU replacement for rerunning the script per setting.
+vmap — the replacement for rerunning the script per setting.
 
 Run: python examples/hopper_raibert.py [--steps 1000] [--v0 0.2] [--gif out.gif]
 """
@@ -28,8 +28,7 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     # reference numerics are Float64 (flat_raibert.jl r_tol/κ_tol 1e-8);
-    # the pure-sim workload has no MPC solve so f64 costs little even on
-    # TPU (where it software-emulates)
+    # the pure-sim workload has no MPC solve, so f64 costs little
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 

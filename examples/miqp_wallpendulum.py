@@ -7,15 +7,16 @@ piecewise-affine contact modes (none / left wall / right wall), each a
 box domain in (θ, θ̇) with its own affine dynamics (A_i, B_i, c_i).
 The reference solves the hybrid MPC as a big-M mixed-integer QP with
 Gurobi (miqp.jl:28-58); a commercial branch-and-bound solver is neither
-available nor TPU-shaped, so this build solves the same hybrid program
-by **batched explicit enumeration** — the TPU-native reformulation:
+available nor batch-shaped, so this build solves the same hybrid program
+by **batched explicit enumeration** — the accelerator-friendly
+reformulation:
 
 * enumerate mode sequences over the MPC horizon with at most
   ``max_switches`` mode changes (contact schedules are piecewise
   constant; the same restriction standard hybrid-MPC enumeration uses),
 * for every sequence, condense the affine dynamics and solve the
   resulting equality-constrained QP in closed form — one batched dense
-  solve over ALL sequences at once (vmap → MXU),
+  solve over ALL sequences at once (one vmap),
 * apply the reference's big-M idea in reverse: sequences whose optimal
   trajectory leaves their mode domains get an infeasibility penalty
   (β-scaled violation, miqp.jl:β=1e3), and the argmin over the batch is

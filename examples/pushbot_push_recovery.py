@@ -66,7 +66,7 @@ def main():
         b=1e-100 * np.ones((h_mpc, dims.nb)), dtype=dtype)
 
     # hard real time in the reference: max_time = h/2 (push_recovery.jl:76);
-    # the deterministic TPU analog is the fixed iteration budget below
+    # the deterministic device analog is the fixed iteration budget below
     policy = ci_mpc_policy(
         model, env, ref, obj, h_mpc=h_mpc, n_sample=n_sample,
         kappa_mpc=kappa, mode=CONFIGURATION_FORCE,

@@ -1,9 +1,9 @@
 """Monte-Carlo robustness sweep of the flat-ground quadruped CIMPC —
-pod-scale replacement for the reference's serial loop
+multi-device replacement for the reference's serial loop
 (``/root/reference/examples/quadruped/monte_carlo.jl`` /
 ``examples/hopper/monte_carlo.jl:78-91``): the batch of rollouts with
 uniformly-offset initial states runs as ONE mesh-sharded program; sweep
-statistics psum-reduce over ICI.
+statistics psum-reduce across the devices.
 
 Run: python examples/quadruped_monte_carlo.py [--n 128] [--steps 500]
      [--cpu8]   (--cpu8 = virtual 8-device CPU mesh)
@@ -43,8 +43,8 @@ def main():
 
     import contactimplicitmpc_tpu as ci
     from contactimplicitmpc_tpu.control import (
-        CONFIGURATION, NewtonOptions, from_gait, initial_conditions,
-        tracking_objective)
+        CONFIGURATION, NewtonOptions, from_gait, tracking_objective)
+    from contactimplicitmpc_tpu.hotpath import conf_initial_states
     from contactimplicitmpc_tpu.control.rollout import mpc_rollout
     from contactimplicitmpc_tpu.models import quadruped as model
     from contactimplicitmpc_tpu.models.base import dims_of
@@ -85,21 +85,10 @@ def main():
     n = (args.n // len(devices)) * len(devices)
     run = make_sharded_mpc_rollouts(mesh, rollout, ref, n_sample)
 
-    # the reference study's distribution: kinematically-consistent
-    # standing poses from leg-angle/pose ranges (monte_carlo.jl:80-89 via
-    # initial_configuration :94-116), gait velocity
-    from contactimplicitmpc_tpu.models.quadruped import \
-        initial_configuration
-    q1, v1 = initial_conditions(ref)
-    key = jax.random.PRNGKey(0)
-    cmin = jnp.asarray([0.0, 0.6, 0.6, 0.6, -0.2, -0.3], dtype)
-    cmax = jnp.asarray([0.05, 0.8, 0.8, 0.8, 0.2, 0.1], dtype)
-    conf = cmin + (cmax - cmin) * jax.random.uniform(key, (n, 6), dtype)
-    conf = conf.at[:, 5].set(jnp.maximum(conf[:, 5], 0.0))
-    q1s = jax.vmap(lambda c: initial_configuration(
-        model, c[0], c[1], c[2], c[3], c[4], c[5]))(conf)
-    q1s = q1s.at[0].set(q1)
-    v1s = jnp.broadcast_to(v1, (n, dims.nq)).astype(dtype)
+    # the reference study's distribution (monte_carlo.jl:80-89), lane 0
+    # nominal
+    q1s, v1s = conf_initial_states(model, ref, n, jax.random.PRNGKey(0),
+                                   dtype)
 
     t0 = time.time()
     traj, stats = run(q1s, v1s)

@@ -2,11 +2,11 @@
 
 Run by tests/test_multihost.py with CIMPC_COORDINATOR / CIMPC_NUM_PROCESSES
 / CIMPC_PROCESS_ID set. Each process owns 4 virtual CPU devices; the global
-mesh is (dp=2 hosts, kn=4 devices). The program is the sharded Monte-Carlo
-sweep (parallel/rollouts.py) over the global batch: each process feeds only
-its local slice, statistics psum across the full mesh, and every process
-checks the GLOBAL reductions — the same SPMD shape as a real multi-host
-TPU slice (dp over DCN, kn over ICI).
+mesh is one 8-device ``dp`` axis, each process owning a contiguous half.
+The program is the sharded Monte-Carlo sweep (parallel/rollouts.py) over
+the global batch: each process feeds only its local slice, statistics psum
+across the full mesh, and every process checks the GLOBAL reductions — the
+same SPMD shape as a sweep over several GPU hosts.
 """
 
 import os
@@ -41,10 +41,10 @@ def main():
     assert len(jax.devices()) == 8
 
     mesh = distributed.make_global_mesh()
-    assert mesh.devices.shape == (2, 4)
-    # dp rows must align with processes (dp collectives cross DCN only)
-    for row, dev_row in enumerate(mesh.devices):
-        assert all(d.process_index == row for d in dev_row)
+    assert mesh.devices.shape == (8,)
+    assert mesh.axis_names == ("dp",)
+    # each process owns one contiguous block of the dp axis
+    assert [d.process_index for d in mesh.devices] == [0] * 4 + [1] * 4
 
     # global batch 16 = 2 processes x 8 local lanes; distinct initial
     # heights per lane so the psum'd mean is a real cross-host reduction

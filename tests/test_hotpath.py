@@ -10,7 +10,8 @@ Runs in float32 on CPU (the bench dtype; conftest enables x64 globally
 but all arrays here are created f32) at a reduced batch/steps budget.
 Thresholds are the reference CI contract
 (/root/reference/test/controller/mpc_quadruped.jl:61-68) for the nominal
-lane plus the round-4 measured Monte-Carlo success floor (TUNING.md).
+lane plus a Monte-Carlo success floor set before the move to the H100
+and not yet measured there (ROADMAP D3).
 """
 
 import jax
@@ -18,9 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from contactimplicitmpc_tpu.control import initial_conditions
 from contactimplicitmpc_tpu.control.trajectory import tracking_errors
 from contactimplicitmpc_tpu.hotpath import (HotPathConfig,
+                                            conf_initial_states,
                                             make_quadruped_rollout)
 
 
@@ -33,22 +34,9 @@ def hotpath_run():
     rollout, ref, model, env, dims = make_quadruped_rollout(
         cfg, steps, dtype)
 
-    q1, v1 = initial_conditions(ref)
-    q1 = q1.astype(dtype)
-    v1 = v1.astype(dtype)
-    # bench "conf" distribution (examples/quadruped/monte_carlo.jl:80-116)
-    from contactimplicitmpc_tpu.models.quadruped import \
-        initial_configuration
-    key = jax.random.PRNGKey(0)
-    cmin = jnp.asarray([0.0, 0.6, 0.6, 0.6, -0.2, -0.3], dtype)
-    cmax = jnp.asarray([0.05, 0.8, 0.8, 0.8, 0.2, 0.1], dtype)
-    conf = cmin + (cmax - cmin) * jax.random.uniform(key, (batch, 6), dtype)
-    conf = conf.at[:, 5].set(jnp.maximum(conf[:, 5], 0.0))
-    q1s = jax.vmap(lambda c: initial_configuration(
-        model, c[0], c[1], c[2], c[3], c[4], c[5]))(conf).astype(dtype)
-    q1s = q1s.at[0].set(q1)
-    v1s = jnp.broadcast_to(v1, (batch, dims.nq)).astype(dtype)
-
+    # bench "conf" distribution, lane 0 nominal
+    q1s, v1s = conf_initial_states(model, ref, batch, jax.random.PRNGKey(0),
+                                   dtype)
     out = jax.jit(jax.vmap(rollout))(q1s, v1s)
     jax.block_until_ready(out)
     return cfg, ref, out, batch
@@ -78,7 +66,7 @@ def test_hotpath_nominal_tracking(hotpath_run):
 def test_hotpath_batch_success(hotpath_run):
     """Monte-Carlo lane survival at the shipped defaults: every lane of
     this 16-pose sample of the reference distribution must finish with
-    ≥95% converged sim steps (bench-wide success floor, TUNING.md)."""
+    ≥95% converged sim steps (bench-wide success floor, ROADMAP D3)."""
     cfg, ref, out, batch = hotpath_run
     per_lane = jnp.mean(out.sim_converged.astype(jnp.float32), axis=1)
     success = jnp.mean((per_lane >= 0.95).astype(jnp.float32))

@@ -1,4 +1,4 @@
-"""TPU-friendly small dense solvers vs numpy oracles (the reference tests
+"""Pivot-free small dense solvers vs numpy oracles (the reference tests
 its QR/LU/Schur the same way: random matrices vs `\\`,
 test/solver/{qr,lu,schur}.jl)."""
 

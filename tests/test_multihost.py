@@ -1,12 +1,11 @@
-"""2-process multi-host smoke test (VERDICT r3 item 6; SURVEY.md §2.10
-distributed-backend row).
+"""2-process multi-host smoke test (SURVEY.md §2.10 distributed-backend
+row).
 
 Spawns two OS processes joined through the jax.distributed coordinator,
 each owning 4 virtual CPU devices, running the same SPMD sharded
-Monte-Carlo sweep over a (dp=2 hosts, kn=4 devices) global mesh — the
-program shape of a real multi-host TPU slice with dp over DCN and kn over
-ICI. The workers themselves assert the global psum reductions; this test
-checks both exit cleanly.
+Monte-Carlo sweep over one global 8-device ``dp`` axis — the program shape
+of a sweep over several GPU hosts. The workers themselves assert the
+global psum reductions; this test checks both exit cleanly.
 """
 
 import os

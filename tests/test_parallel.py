@@ -28,7 +28,18 @@ def _batch(n):
 
 def test_mesh_shape(mesh):
     assert mesh.devices.size == 8
-    assert mesh.axis_names == ("dp", "kn")
+    assert mesh.axis_names == ("dp",)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_make_mesh_is_1d(n):
+    """One data-parallel axis over the first n devices, in device order."""
+    if len(jax.devices()) < n:
+        pytest.skip(f"needs {n} virtual devices")
+    mesh = make_mesh(n)
+    assert mesh.devices.shape == (n,)
+    assert mesh.axis_names == ("dp",)
+    assert list(mesh.devices) == jax.devices()[:n]
 
 
 def test_sharded_rollouts_match_local(mesh):
@@ -54,3 +65,11 @@ def test_sharded_stats_psum(mesh):
     np.testing.assert_allclose(np.asarray(stats.mean_final_q),
                                np.asarray(jnp.mean(local.q[:, -1], axis=0)),
                                atol=1e-6)
+
+
+def test_dryrun_multichip_refuses_missing_devices():
+    """The CPU rehearsal raises, never falls back, when the backend
+    cannot give it the devices it needs."""
+    from __graft_entry__ import dryrun_multichip
+    with pytest.raises(RuntimeError, match="needs 16 CPU devices"):
+        dryrun_multichip(16)

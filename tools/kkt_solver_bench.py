@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Microbenchmark: direct-mode horizon-KKT solve backends on TPU.
+"""Microbenchmark: direct-mode horizon-KKT solve backends on the GPU.
 
 Workload = the direct-mode Newton's linear solve (newton.py:321-327):
 one symmetric quasidefinite KKT matrix per rollout lane, batch of 256
@@ -7,9 +7,10 @@ lanes (the Monte-Carlo sweep shape), quadruped configuration mode at
 H_mpc=10 → n = 10·(19+11) = 300.
 
 Backends: unpivoted LDLᵀ (ops/linsolve.ldl_solve, QDLDL role) vs XLA's
-pivoted LU (jnp.linalg.solve). Decides NewtonOptions.kkt_solver
-(VERDICT r3 item 5). Correctness is cross-checked against the other
-backend on the same batch.
+pivoted LU (jnp.linalg.solve). Decides NewtonOptions.kkt_solver.
+Correctness is cross-checked against the other backend on the same batch.
+
+Run: python tools/kkt_solver_bench.py   (prints to stderr)
 """
 
 import os
@@ -20,14 +21,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-jax.config.update("jax_default_matmul_precision", "highest")
-jax.config.update("jax_compilation_cache_dir", "/tmp/cimpc_xla_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-
 import jax.numpy as jnp
-import numpy as np
 
 from contactimplicitmpc_tpu.ops.linsolve import ldl_solve
+from contactimplicitmpc_tpu.utils.runtime import enable_compile_cache
 
 BATCH = 256
 H, NR, ND = 10, 19, 11
@@ -35,6 +32,11 @@ N = H * (NR + ND)
 
 
 def main():
+    jax.config.update("jax_default_matmul_precision", "highest")
+    enable_compile_cache()
+    devices = jax.devices()
+    print(f"device: {devices[0].platform} {devices[0].device_kind} "
+          f"x{len(devices)}", file=sys.stderr, flush=True)
     key = jax.random.PRNGKey(0)
     # synthetic SQD KKT with the real block signature: SPD primal block,
     # negative-definite dual regularization, dense couplings
